@@ -10,10 +10,6 @@ Run:  python examples/hamsm_construction.py [output_dir]
 import os
 import sys
 
-from msm_we_tpu.utils import force_cpu_if_requested
-
-force_cpu_if_requested()
-
 import numpy as np
 
 from msm_we_tpu.binning import RectilinearBinMapper

@@ -1,6 +1,6 @@
-"""msm_we_tpu: TPU-native haMSM estimation from weighted-ensemble data.
+"""msm_we_tpu: haMSM estimation from weighted-ensemble data on JAX.
 
-A ground-up JAX/XLA/Pallas re-design with the capability surface of the
+A ground-up JAX/XLA re-design with the capability surface of the
 reference ``msm_we`` package (see SURVEY.md): WESTPA ``west.h5`` ingest,
 featurization and dimensionality reduction, (stratified per-WE-bin) k-means
 clustering, weighted flux-matrix estimation, steady-state/committor/flux

@@ -13,13 +13,9 @@ import sys
 
 
 def main(argv=None):
-    from .utils import force_cpu_if_requested
-
-    force_cpu_if_requested()
-
     parser = argparse.ArgumentParser(
         prog="msm-we-tpu",
-        description="TPU-native haMSM estimation from weighted-ensemble data",
+        description="haMSM estimation from weighted-ensemble data on JAX",
     )
     sub = parser.add_subparsers(dest="command")
 
@@ -71,6 +67,10 @@ def main(argv=None):
     info = sub.add_parser("info", help="Print package/device info")
 
     args = parser.parse_args(argv)
+    if args.command in ("build", "validate"):
+        from .utils import enable_compilation_cache
+
+        enable_compilation_cache()
 
     if args.command == "info":
         import jax

@@ -14,10 +14,14 @@ plus seeded noise so featurization/clustering have realistic work to do.
 """
 from __future__ import annotations
 
-import h5py
 import numpy as np
 
-__all__ = ["SynthWESettings", "generate_west_h5", "generate_trajectory_arrays"]
+__all__ = [
+    "SynthWESettings",
+    "generate_west_h5",
+    "generate_trajectory_arrays",
+    "west_iteration_layout",
+]
 
 # Structured dtype compatible with how the reference indexes seg_index:
 # field 0 = weight, field 1 = parent_id (``_data.py:406-407,900``)
@@ -247,6 +251,25 @@ def generate_trajectory_arrays(settings: SynthWESettings):
     return iterations
 
 
+def west_iteration_layout(data, auxpath="coord"):
+    """The datasets of one west.h5 iteration group, keyed by their path in
+    the group, from one entry of :func:`generate_trajectory_arrays`.
+
+    The one layout both :func:`generate_west_h5` and the in-memory
+    ``WEDataset.from_arrays`` use, so the two routes cannot drift."""
+    M = len(data["weights"])
+    seg_index = np.zeros(M, dtype=SEG_INDEX_DTYPE)
+    seg_index["weight"] = data["weights"]
+    seg_index["parent_id"] = data["parent_ids"]
+    seg_index["endpoint_type"] = np.where(data["recycled"], 3, 1)
+    seg_index["status"] = 2  # complete
+    return {
+        "seg_index": seg_index,
+        "pcoord": data["pcoords"],
+        f"auxdata/{auxpath}": data["coords"],
+    }
+
+
 def generate_west_h5(
     path, n_iterations=None, n_segments=None, seed=None, warmup=None,
     settings=None,
@@ -276,19 +299,14 @@ def generate_west_h5(
             "settings=, no extra trailing iteration is appended, so readers "
             "see settings.n_iterations - 1 usable iterations."
         )
+    import h5py
+
     iterations = generate_trajectory_arrays(settings)
 
     with h5py.File(path, "w") as h5:
         h5.attrs["west_version"] = "synthetic-msm_we_tpu"
         for i, data in enumerate(iterations):
             grp = h5.create_group(f"iterations/iter_{i + 1:08d}")
-            M = len(data["weights"])
-            seg_index = np.zeros(M, dtype=SEG_INDEX_DTYPE)
-            seg_index["weight"] = data["weights"]
-            seg_index["parent_id"] = data["parent_ids"]
-            seg_index["endpoint_type"] = np.where(data["recycled"], 3, 1)
-            seg_index["status"] = 2  # complete
-            grp.create_dataset("seg_index", data=seg_index)
-            grp.create_dataset("pcoord", data=data["pcoords"])
-            grp.create_dataset("auxdata/coord", data=data["coords"])
+            for name, array in west_iteration_layout(data).items():
+                grp.create_dataset(name, data=array)
     return path

@@ -13,15 +13,17 @@ Redesign: instead of a mutable god-object re-reading HDF5 per call, the reader
 scans once, caches per-iteration index data (tiny), and streams coordinate
 blocks on demand; the facade's feature pipeline packs them into fixed-size
 device chunks (``modelWE._StreamingReducer``).
+
+:meth:`WEDataset.from_arrays` serves the same methods from in-memory
+per-iteration arrays in west.h5 layout; ``h5py`` is imported only by the
+file-backed reader.
 """
 from __future__ import annotations
 
 import threading
 import time
 
-import h5py
 import numpy as np
-from h5py import h5o, h5s
 
 from .._logging import log
 
@@ -41,10 +43,30 @@ def _ll_read_full(did, dtype, shape=None):
     ``DatasetID.read`` with the dtype memoized. h5py's internal lock (phil)
     still serializes the actual HDF5 call, so this stays safe under the
     prefetch thread."""
+    from h5py import h5s
+
     out = np.empty(did.shape if shape is None else shape, dtype=dtype)
     if out.size:
         did.read(h5s.ALL, h5s.ALL, out)
     return out
+
+
+class _ArrayDataset:
+    """Read-only stand-in for an ``h5py.Dataset`` over an in-memory array.
+
+    Every read returns a fresh array, as an HDF5 read does, so consumers that
+    mutate what they read (the featurizer's ``nan_to_num(copy=False)``) never
+    reach the source arrays."""
+
+    def __init__(self, array):
+        self._array = array
+
+    shape = property(lambda self: self._array.shape)
+    dtype = property(lambda self: self._array.dtype)
+    nbytes = property(lambda self: self._array.nbytes)
+
+    def __getitem__(self, key):
+        return np.array(self._array[key])
 
 
 # Continuity verdicts memoized across WEDataset instances, keyed by file
@@ -66,12 +88,16 @@ class WEDataset:
     auxpath: name of the augmented-coordinate dataset under ``auxdata/``.
     """
 
-    def __init__(self, file_list, pcoord_ndim=1, auxpath="coord"):
+    def __init__(self, file_list, pcoord_ndim=1, auxpath="coord", *,
+                 _groups=None):
         if isinstance(file_list, str):
             file_list = file_list.split(" ")
         self.file_list = list(file_list)
         self.pcoord_ndim = int(pcoord_ndim)
         self.auxpath = auxpath
+        # In-memory source (from_arrays): one west.h5 iteration group per
+        # entry, read as the single "file" 0; None for the file-backed reader
+        self._groups = _groups
 
         self._iter_index = {}  # n_iter -> list of (file_idx, n_segs)
         self._scan()
@@ -105,6 +131,23 @@ class WEDataset:
         self._block_consumed = set()
         self._block_shared = set()
 
+    @classmethod
+    def from_arrays(cls, iterations, pcoord_ndim=1, auxpath="coord"):
+        """Dataset over in-memory iterations instead of west.h5 files.
+
+        ``iterations`` is the per-iteration list of dicts that
+        :func:`~msm_we_tpu.data.generate_trajectory_arrays` returns. They are
+        laid out by the same function that writes them to west.h5
+        (:func:`~msm_we_tpu.data.synthetic.west_iteration_layout`), and, as
+        in a file, the last iteration is incomplete and unused. Every reader
+        method behaves as it does on the equivalent file; ``file_list`` is
+        empty.
+        """
+        from .synthetic import west_iteration_layout
+
+        groups = [west_iteration_layout(d, auxpath) for d in iterations]
+        return cls([], pcoord_ndim=pcoord_ndim, auxpath=auxpath, _groups=groups)
+
     def _h5(self, file_idx):
         """Persistent read-only handle for ``file_list[file_idx]``.
 
@@ -118,6 +161,8 @@ class WEDataset:
         instead conflicts with every default-locking open of the same file
         in this process, which is worse.)
         """
+        import h5py
+
         with self._io_lock:
             h5 = self._open_handles.get(file_idx)
             if h5 is None or not h5.id.valid:
@@ -309,6 +354,8 @@ class WEDataset:
             dtypes = self._index_dtype_memo = {}
         pair = dtypes.get(file_idx)
         if pair is None:
+            import h5py
+
             pair = (
                 h5py.Dataset(si_id).dtype,
                 h5py.Dataset(pc_id).dtype,
@@ -326,6 +373,8 @@ class WEDataset:
         f32, the mixed-dtype case ``_read_frame_block``'s multi-file path
         explicitly promotes for)."""
         dset = self._aux_dset(file_idx, n_iter)
+        if isinstance(dset, _ArrayDataset):
+            return dset[()]
         dtype = getattr(self, "_aux_dtype_memo", {}).get((file_idx, n_iter))
         if dtype is None:  # dset predates the memo (e.g. legacy pickle)
             dtype = dset.dtype
@@ -340,10 +389,22 @@ class WEDataset:
         key = (file_idx, n_iter)
         with self._io_lock:
             dset = self._dset_cache.get(key)
-            if dset is None or not dset.id.valid:
-                dset = self._h5(file_idx)[
-                    f"{_iter_name(n_iter)}/auxdata/{self.auxpath}"
-                ]
+            if dset is None or not (
+                isinstance(dset, _ArrayDataset) or dset.id.valid
+            ):
+                if self._groups is not None:
+                    try:
+                        dset = _ArrayDataset(
+                            self._groups[n_iter - 1][f"auxdata/{self.auxpath}"]
+                        )
+                    except KeyError:
+                        raise KeyError(
+                            f"iteration {n_iter} has no auxdata/{self.auxpath}"
+                        ) from None
+                else:
+                    dset = self._h5(file_idx)[
+                        f"{_iter_name(n_iter)}/auxdata/{self.auxpath}"
+                    ]
                 assert dset.shape[1] > 1, (
                     "Augmented coords need at least start & end frames"
                 )
@@ -382,6 +443,8 @@ class WEDataset:
         if "_block_cache" not in state:
             self._block_cache = None
             self._block_used = 0
+        if "_groups" not in state:
+            self._groups = None
         if not isinstance(getattr(self, "_io_lock", None), type(threading.RLock())):
             self._io_lock = threading.RLock()
         self._prefetch_thread = None
@@ -401,20 +464,29 @@ class WEDataset:
         """
         # Per file: {n_iter: n_segs} for iterations whose successor also
         # exists in the same file (the last iteration is incomplete)
-        per_file_counts = []
-        for path in self.file_list:
-            with h5py.File(path, "r") as h5:
-                counts = {}
-                if "iterations" in h5:
-                    present = {}
-                    for key in h5["iterations"]:
-                        grp = h5["iterations"][key]
-                        if "seg_index" in grp:
-                            present[int(key.split("_")[1])] = grp["seg_index"].shape[0]
-                    for n, count in present.items():
-                        if n + 1 in present:
-                            counts[n] = count
-                per_file_counts.append(counts)
+        if self._groups is not None:
+            present_per_file = [{
+                i + 1: len(g["seg_index"]) for i, g in enumerate(self._groups)
+            }]
+        else:
+            import h5py
+
+            present_per_file = []
+            for path in self.file_list:
+                present = {}
+                with h5py.File(path, "r") as h5:
+                    if "iterations" in h5:
+                        for key in h5["iterations"]:
+                            grp = h5["iterations"][key]
+                            if "seg_index" in grp:
+                                present[int(key.split("_")[1])] = (
+                                    grp["seg_index"].shape[0]
+                                )
+                present_per_file.append(present)
+        per_file_counts = [
+            {n: count for n, count in present.items() if n + 1 in present}
+            for present in present_per_file
+        ]
 
         num_segments = []
         n_iter = 1
@@ -434,7 +506,9 @@ class WEDataset:
         self.numSegments = np.array(num_segments, dtype=float)
         self.maxIter = len(num_segments)
         if self.maxIter == 0:
-            log.warning(f"No usable iterations found in {self.file_list}")
+            log.warning(
+                f"No usable iterations found in {self._source_name(0)}"
+            )
         self.max_segs = int(self.numSegments.max()) if self.maxIter else 0
 
     # ------------------------------------------------------- per-iteration IO
@@ -459,13 +533,7 @@ class WEDataset:
             return self._iter_data[n_iter]
         weights, parents, p0, p1, west_idx, seg_idx = [], [], [], [], [], []
         for file_idx, _n in self._iter_index[n_iter]:
-            h5 = self._h5(file_idx)
-            gid = h5o.open(h5.id, _iter_name(n_iter).encode())
-            si_id = h5o.open(gid, b"seg_index")
-            pc_id = h5o.open(gid, b"pcoord")
-            si_dtype, pc_dtype = self._index_dtypes(file_idx, si_id, pc_id)
-            seg_index = _ll_read_full(si_id, si_dtype)
-            pcoord = _ll_read_full(pc_id, pc_dtype)
+            seg_index, pcoord = self._read_index(file_idx, n_iter)
             n = len(seg_index)
             weights.append(seg_index["weight"])
             try:
@@ -475,7 +543,7 @@ class WEDataset:
                 parents.append(np.array([row[1] for row in seg_index]))
             if pcoord.shape[2] < self.pcoord_ndim:
                 raise ValueError(
-                    f"pcoord in {self.file_list[file_idx]} has only "
+                    f"pcoord in {self._source_name(file_idx)} has only "
                     f"{pcoord.shape[2]} dims but pcoord_ndim="
                     f"{self.pcoord_ndim} was requested"
                 )
@@ -483,7 +551,7 @@ class WEDataset:
                 # Expected when pcoords were extended by the optimization
                 # flow; warn once (reference ``_data.py:878-889``)
                 log.warning(
-                    f"pcoord in {self.file_list[file_idx]} has "
+                    f"pcoord in {self._source_name(file_idx)} has "
                     f"{pcoord.shape[2]} dims; loading only the first "
                     f"{self.pcoord_ndim}. This is expected if you're "
                     "extending your pcoord (e.g. in an optimization flow)."
@@ -522,7 +590,7 @@ class WEDataset:
             pos = rows & (global_parents >= 0)
             if pos.any() and n_iter > 1 and int(f_idx) not in offsets_prev:
                 raise ValueError(
-                    f"{self.file_list[int(f_idx)]} has segments in iteration "
+                    f"{self._source_name(int(f_idx))} has segments in iteration "
                     f"{n_iter} with parents, but no usable iteration "
                     f"{n_iter - 1} -- cannot globalize its parent ids "
                     "(truncated or mid-run file?)"
@@ -532,6 +600,25 @@ class WEDataset:
 
         self._iter_data[n_iter] = data
         return data
+
+    def _source_name(self, file_idx):
+        if self._groups is not None:
+            return "the in-memory iterations"
+        return self.file_list[file_idx]
+
+    def _read_index(self, file_idx, n_iter):
+        """(seg_index, pcoord) arrays of one iteration in one file."""
+        if self._groups is not None:
+            group = self._groups[n_iter - 1]
+            return group["seg_index"], group["pcoord"]
+        from h5py import h5o
+
+        h5 = self._h5(file_idx)
+        gid = h5o.open(h5.id, _iter_name(n_iter).encode())
+        si_id = h5o.open(gid, b"seg_index")
+        pc_id = h5o.open(gid, b"pcoord")
+        si_dtype, pc_dtype = self._index_dtypes(file_idx, si_id, pc_id)
+        return _ll_read_full(si_id, si_dtype), _ll_read_full(pc_id, pc_dtype)
 
     def iter_coord_pairs(self, n_iter):
         """(parent_coords, child_coords, weights) for one iteration.
@@ -888,6 +975,8 @@ class WEDataset:
         import os
 
         try:
+            if self._groups is not None:
+                raise OSError("in-memory iterations have no file identity")
             # (realpath, inode, mtime_ns, size): an in-place same-size
             # rewrite inside one mtime tick can still alias (filesystem
             # timestamp granularity) -- callers mutating files they just

@@ -12,7 +12,6 @@ from __future__ import annotations
 from copy import deepcopy
 from math import log as _mathlog
 
-import networkx as nx
 import numpy as np
 
 from ..utils import Interval, get_shape, reverse_sort_lists, weighted_choice
@@ -463,8 +462,9 @@ class DiscretePathEnsemble(PathEnsemble, DiscreteEnsemble):
         for path in self.trajectories:
             cmatrix = self._connectivity_matrix(path, matrix)
             path_graph = self._graph_from_matrix(cmatrix)
-            shortest_path = nx.dijkstra_path(path_graph, path[0], path[-1], "distance")
-            fundamental_seqs.append(shortest_path)
+            fundamental_seqs.append(
+                self._shortest_path(path_graph, int(path[0]), int(path[-1]))
+            )
         return fundamental_seqs
 
     def weighted_fundamental_sequences(self, transition_matrix=None, symmetric=True):
@@ -484,18 +484,39 @@ class DiscretePathEnsemble(PathEnsemble, DiscreteEnsemble):
 
     @staticmethod
     def _graph_from_matrix(matrix):
-        """Directed graph with edge distance -log(T_ij) for nonzero off-diagonals."""
+        """Sparse directed graph with edge distance -log(T_ij) for nonzero
+        off-diagonals (explicit zero distances stay edges)."""
+        from scipy.sparse import csr_matrix
+
         matrix = np.asarray(matrix)
         size = len(matrix)
         assert size == matrix.shape[1]
 
-        G = nx.DiGraph()
-        G.add_nodes_from(range(size))
         ii, jj = np.nonzero(matrix)
-        for i, j in zip(ii, jj):
-            if i != j:
-                G.add_edge(int(i), int(j), distance=-_mathlog(matrix[i, j]))
-        return G
+        off = ii != jj
+        ii, jj = ii[off], jj[off]
+        dist = np.array([-_mathlog(matrix[i, j]) for i, j in zip(ii, jj)])
+        return csr_matrix((dist, (ii, jj)), shape=(size, size))
+
+    @staticmethod
+    def _shortest_path(graph, source, target):
+        """Dijkstra's shortest path ``source -> target`` as a list of nodes.
+
+        Between paths of exactly equal length the choice may differ from
+        the reference's networkx search; paths scored from measured
+        transition probabilities practically never tie."""
+        from scipy.sparse.csgraph import dijkstra
+
+        _dist, pred = dijkstra(
+            graph, directed=True, indices=source, return_predecessors=True
+        )
+        path = [target]
+        while path[-1] != source:
+            prev = int(pred[path[-1]])
+            if prev < 0:
+                raise ValueError(f"No path from state {source} to {target}")
+            path.append(prev)
+        return path[::-1]
 
     @staticmethod
     def _connectivity_matrix(path, matrix):

@@ -4,7 +4,7 @@ Capability parity with the reference ``msm_we/nmm.py`` (NonMarkovModel :16,
 MarkovPlusColorModel :442). The per-frame Python counting loops
 (``nmm.py:132-158`` and ``nmm.py:494-565``) are replaced by vectorized
 label forward-fills and bincount scatter-accumulation -- O(N) array ops with
-no Python-level frame loop, the same strategy the TPU flux-matrix kernel uses
+no Python-level frame loop, the same strategy the flux-matrix scatter uses
 on device.
 """
 from __future__ import annotations

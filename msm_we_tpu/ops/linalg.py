@@ -10,7 +10,7 @@ Precision split (SURVEY.md section 7): these matrices are small (hundreds of
 states) but ill-conditioned, spanning many orders of magnitude
 (``_analysis.py:113-125``), so the *parity* path runs in float64 numpy/scipy
 on the host -- identical numerics to the reference. Jitted device variants
-(power iteration, committor iteration) are provided for the fused TPU pipeline
+(power iteration, committor iteration) are provided for the fused device pipeline
 where f32 suffices; the facade picks per call.
 
 The O(n^3) per-cut flux-profile loops of the reference (``_analysis.py:

@@ -9,7 +9,7 @@ unsupported for VAMP, ``:303-306``), batch PCA (``:296``), and the identity
 Re-design: the reference runs every partial_fit in a forked subprocess purely
 to force memory release (``:174-186,220-227``). Here moments are accumulated
 streamingly -- per-batch partial sums are computed on device (one matmul for
-the second moment, MXU work), accumulated in float64 on the host, and the
+the second moment), accumulated in float64 on the host, and the
 tiny (d x d) eigenproblems run in numpy. Exact PCA replaces iPCA: on the same
 data the covariance matches (the reference's own regression test compares
 covariances, ``test_msm_we.py:86-90``), without iPCA's order-dependent
@@ -40,7 +40,7 @@ def _pad_batch_pow2(X, w, extra=None):
 
     Streaming fits see ragged per-iteration batch sizes; padding keeps the
     set of shapes reaching the jitted kernels logarithmic instead of one
-    (expensive, possibly remote) XLA compile per distinct segment count.
+    (expensive) XLA compile per distinct segment count.
     Zero-weight rows contribute nothing to weighted moments/updates.
     ``extra``: optional 1-D int array padded with zeros alongside (e.g. WE
     bin ids). The single shared implementation -- stratified streaming
@@ -105,7 +105,7 @@ class MomentAccumulator:
     Per-batch centered moments are combined across batches with Chan's
     pairwise update in float64. The per-batch computation runs in float64
     numpy by default (exact covariance parity); ``dtype=np.float32`` switches
-    to the jitted device kernel for TPU-throughput runs, at the cost of a
+    to the jitted device kernel for throughput runs, at the cost of a
     ~n_batch * eps covariance error.
     """
 
@@ -193,10 +193,11 @@ class MomentAccumulator:
         return PCAModel(mean, evecs[:, :n_components].T, evals[:n_components], cov)
 
 
-# Below this many MFLOPs a projection runs in host numpy: a device round
-# trip (transfer + dispatch + readback -- potentially milliseconds through a
-# remote tunnel) dwarfs the matmul for small chunks, while NTL9-scale raw
-# dims (hundreds of atoms) clear the threshold and use the device.
+# Below this many FLOPs a projection runs in host numpy: a device round
+# trip (transfer + dispatch + readback) dwarfs the matmul for small chunks.
+# The value is still to be measured on the GPU (ROADMAP): at 900 raw dims a
+# 2-component projection of an 8,192-row chunk (2.9e7 FLOP) stays on the
+# host.
 _DEVICE_TRANSFORM_MIN_FLOPS = 5e7
 
 

@@ -1,4 +1,4 @@
-"""Mesh parallelism: sharded discretize+flux pipeline over TPU devices."""
+"""Mesh parallelism: sharded discretize+flux pipeline over accelerator devices."""
 from .mesh import best_mesh_shape, make_mesh
 from .sharded import build_sharded_step, fused_step_single, steady_state_from_flux
 

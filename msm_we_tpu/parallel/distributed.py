@@ -2,18 +2,22 @@
 
 The reference joins multi-node Ray clusters and fans WE iterations out as Ray
 tasks (``msm_we.py:639-641,697-711``; ``hamsm_driver.py:78,110-111``). The
-TPU-native equivalent is SPMD: every process calls
+JAX equivalent is SPMD: every process calls
 :func:`jax.distributed.initialize`, reads ONLY its own shard of the segment
 data (one west.h5/feature shard per host), assembles the global arrays with
 ``jax.make_array_from_process_local_data`` against the global mesh's
 ``P('data')`` sharding, and runs the same fused discretize+flux step as the
-single-process path -- the in-mesh ``psum`` over 'data' rides the ICI/DCN
+single-process path -- the in-mesh ``psum`` over 'data' rides the
 collectives instead of a driver-side gather.
 
 ``run_worker`` is the per-process entry point; ``launch_local_dryrun``
 spawns ``n_procs`` CPU processes on this machine (Gloo collectives) and
 asserts the global flux matrix is bit-identical to the single-process
-result. The driver-facing wrapper is ``__graft_entry__.dryrun_distributed``.
+result. The wrapper is ``__graft_entry__.dryrun_distributed``.
+
+This is a CPU dry run: every worker pins itself to the CPU platform, so it
+never opens a GPU (one process per card stays the rule). Multi-process
+ingest over NCCL on GPUs is not implemented.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Device-mesh construction helpers.
 
 The reference's only distributed substrate is Ray task fan-out over WE
-iterations with a driver-side reduction (SURVEY.md P1). The TPU-native
+iterations with a driver-side reduction (SURVEY.md P1). The JAX
 equivalent is a 2-D ``jax.sharding.Mesh``:
 
 * ``data`` axis: segments (transitions) are sharded -- the analogue of the

@@ -2,8 +2,11 @@
 
 The reference's only observability is a rich Live step table with check-marks
 (``msm_we.py:529-586``) and ad-hoc ``time.perf_counter`` calls. Here every
-pipeline stage records wall-clock into a structured report, and a profiler
-context can wrap any stage with a TensorBoard-compatible JAX trace.
+pipeline stage records wall-clock into a structured report and a
+``stage:<name>`` span in the JAX profiler's trace, a profiler context can wrap
+any stage with a TensorBoard-compatible JAX trace, and
+:func:`device_activity_by_stage` reduces such a trace to the device work each
+stage ran.
 """
 from __future__ import annotations
 
@@ -13,7 +16,14 @@ import time
 
 from ._logging import log
 
-__all__ = ["StageTimer", "profile_trace", "live_stage_display"]
+__all__ = [
+    "StageTimer",
+    "profile_trace",
+    "live_stage_display",
+    "device_activity_by_stage",
+]
+
+STAGE_SPAN_PREFIX = "stage:"
 
 
 class StageTimer:
@@ -52,9 +62,12 @@ class StageTimer:
         self._stack.append(idx)
         self.running = idx
         self._notify()
+        from jax.profiler import TraceAnnotation
+
         t0 = time.perf_counter()
         try:
-            yield self
+            with TraceAnnotation(STAGE_SPAN_PREFIX + name):
+                yield self
         except BaseException:
             self.failed.add(idx)
             raise
@@ -111,7 +124,7 @@ class StageTimer:
 def live_stage_display(timer, enabled=True):
     """Rich ``Live`` pipeline-step table driven by a :class:`StageTimer`.
 
-    The TPU-native equivalent of the reference's step table
+    The equivalent of the reference's step table
     (``msm_we.py:529-586``): one row per stage with a running/check/cross
     marker, elapsed seconds, and the stage note, refreshed as stages progress.
     Degrades to a no-op when ``enabled`` is False or rich is unavailable, so
@@ -179,3 +192,58 @@ def profile_trace(log_dir=None):
     finally:
         jax.profiler.stop_trace()
         log.info(f"JAX profiler trace written to {log_dir}")
+
+
+def device_activity_by_stage(xplane_path):
+    """Device work per build stage, from a JAX profiler trace.
+
+    Reads the ``.xplane.pb`` that a trace of a build writes (``profile_dir``
+    of ``build_analyze_model``, or ``jax.profiler.trace``), finds the
+    ``stage:<name>`` spans :class:`StageTimer` records on the host, and
+    assigns each device operation (an event carrying an ``hlo_module``
+    stat, on the ``/device:`` planes when the trace has any, else on the
+    host planes of the CPU backend) to the stage whose span contains its
+    start. Returns ``{stage: {"busy_s", "n_ops", "modules"}}``: the union
+    of the operations' intervals in seconds, their count, and the sorted
+    names of the XLA modules they belong to. Stages without device work
+    map to zeros.
+    """
+    from jax.profiler import ProfileData
+
+    data = ProfileData.from_file(str(xplane_path))
+    spans = []
+    ops = {"device": [], "host": []}
+    for plane in data.planes:
+        where = "device" if plane.name.startswith("/device:") else "host"
+        for line in plane.lines:
+            for ev in line.events:
+                if ev.name.startswith(STAGE_SPAN_PREFIX):
+                    spans.append((
+                        ev.name[len(STAGE_SPAN_PREFIX):],
+                        ev.start_ns, ev.start_ns + ev.duration_ns,
+                    ))
+                    continue
+                module = next(
+                    (v for k, v in ev.stats if k == "hlo_module"), None
+                )
+                if module is not None:
+                    ops[where].append(
+                        (ev.start_ns, ev.start_ns + ev.duration_ns, module)
+                    )
+    ops = ops["device"] or ops["host"]
+    out = {}
+    for name, lo, hi in spans:
+        inside = sorted((s, e, m) for s, e, m in ops if lo <= s < hi)
+        busy, end = 0.0, None
+        for s, e, _m in inside:
+            if end is None or s >= end:
+                busy += e - s
+                end = e
+            elif e > end:
+                busy += e - end
+                end = e
+        entry = out.setdefault(name, {"busy_s": 0.0, "n_ops": 0, "modules": []})
+        entry["busy_s"] += busy * 1e-9
+        entry["n_ops"] += len(inside)
+        entry["modules"] = sorted(set(entry["modules"]) | {m for *_x, m in inside})
+    return out

@@ -3,15 +3,14 @@
 Capability parity with the reference ``msm_we/utils.py`` (find_connected_sets
 :21, is_connected :87, inverse_iteration :116, Interval :164,
 normalize_markov_matrix :293, pops_from_tmatrix :407, pseudo_nm_tmatrix :510),
-re-implemented for a TPU-first stack:
+re-implemented for an accelerator-first stack:
 
 * Graph connectivity stays on the host (scipy.csgraph SCC) -- it is control
   logic, not compute.
 * Dense matrix manipulation is vectorized numpy (float64): these matrices are
-  tiny (hundreds of states) and the analysis tail requires double precision,
-  which is emulated/slow on TPU. The *large* compute (clustering, flux
-  accumulation over millions of frames) lives in :mod:`msm_we_tpu.ops` as
-  jitted JAX.
+  tiny (hundreds of states) and the analysis tail requires double precision.
+  The *large* compute (clustering, flux accumulation over millions of
+  frames) lives in :mod:`msm_we_tpu.ops` as jitted JAX.
 """
 from __future__ import annotations
 
@@ -43,21 +42,26 @@ __all__ = [
 ]
 
 
-def force_cpu_if_requested():
-    """Honor ``JAX_PLATFORMS=cpu`` even when an accelerator plugin would win
-    backend selection (``jax.config.update`` takes precedence over plugin
-    priority). Call before first JAX use; no-op otherwise. Shared by the CLI,
-    examples, and test config so the workaround has one source of truth.
+def enable_compilation_cache():
+    """Turn on JAX's persistent compilation cache; return its directory.
+
+    When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses it and no other
+    directory is set here. Otherwise the cache lives at the fixed path
+    ``<checkout>/.jax_cache`` (git-ignored), so repeated runs from one
+    checkout find their compiled programs again.
     """
     import os
 
-    if os.environ.get("JAX_PLATFORMS") == "cpu":
-        import jax
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if path:
+        return path
+    import jax
 
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:  # pragma: no cover - backend already initialized
-            pass
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, ".jax_cache")
+    os.makedirs(path, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def pcoord_in_bounds(pcoords, bounds):
@@ -418,15 +422,7 @@ def pseudo_nm_tmatrix(markovian_tmatrix, stateA, stateB):
 
 
 def _scoped_x64():
-    """Context manager enabling float64 tracing, across JAX versions.
-
-    ``jax.enable_x64`` is the modern spelling (jax >= 0.9); older releases
-    expose ``jax.experimental.enable_x64``.
-    """
+    """Context manager enabling float64 tracing."""
     import jax
 
-    if hasattr(jax, "enable_x64"):
-        return jax.enable_x64(True)
-    from jax.experimental import enable_x64  # pragma: no cover - older jax
-
-    return enable_x64()  # pragma: no cover
+    return jax.enable_x64(True)

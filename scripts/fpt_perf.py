@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""FPT-engine perf probe (VERDICT r4 ask #8): fpt_distribution on a
-~1k-state transition matrix, host f64 loop vs the jitted device engine.
+"""FPT-engine perf probe: fpt_distribution on a ~1k-state transition
+matrix, host f64 loop vs the jitted device engine.
 
 Prints ONE JSON line with host/device wall-clock (best of --repeats warm
 runs after one compile run), the parity between the two engines, and an
-adaptive_fpt_distribution host timing for the same matrix. Run on the TPU
-for the docs/performance.md row; on CPU it still validates the machinery.
+adaptive_fpt_distribution host timing for the same matrix. Times mean
+something only on the accelerator; on CPU it still validates the machinery.
 
 Usage::
 
@@ -13,10 +13,7 @@ Usage::
 """
 import argparse
 import json
-import os
 import time
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/msm_we_tpu_jax_cache")
 
 import numpy as np
 
@@ -36,6 +33,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from msm_we_tpu.msm.fpt import MatrixFPT
+    from msm_we_tpu.utils import enable_compilation_cache
+
+    enable_compilation_cache()
 
     n = args.n_states
     T = random_metastable(n, seed=1)

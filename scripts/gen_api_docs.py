@@ -21,7 +21,7 @@ from pathlib import Path
 
 # The documented surface, mirroring the reference's api.rst sections
 # (msm_we.modelWE, msm_we.optimization, msm_we.fpt/ensembles/nmm/utils,
-# msm_we.westpa_plugins.*) plus the TPU-native layers the reference has no
+# msm_we.westpa_plugins.*) plus the device layers the reference has no
 # counterpart for (ops/, parallel/, data/).
 SECTIONS = [
     (
@@ -68,13 +68,12 @@ SECTIONS = [
         ],
     ),
     (
-        "TPU compute kernels (no reference counterpart)",
+        "Device compute kernels (no reference counterpart)",
         [
             "msm_we_tpu.ops.pca",
             "msm_we_tpu.ops.kmeans",
             "msm_we_tpu.ops.stratified",
             "msm_we_tpu.ops.linalg",
-            "msm_we_tpu.ops.pallas_kernels",
         ],
     ),
     (

@@ -4,13 +4,13 @@
 Generates (and caches) a synthetic west.h5 of the requested size, runs the
 full ``build_analyze_model(device_pipeline=True)`` pipeline, and prints ONE
 JSON line with wall-clock, per-stage split, peak host RSS, device HBM stats,
-and the block-cache/chunking behavior -- the memory-budget evidence for
-``docs/performance.md``'s scaling table.
+and the block-cache/chunking behavior.
 
 Usage::
 
     python scripts/stress_scale.py --segments-per-iter 100000 --iterations 101
-    # ~10.1M segments; dataset cached under /tmp keyed by the shape
+    # ~10.1M segments; the west.h5 is cached in the temporary directory,
+    # keyed by the shape
 
 The reference cannot run this shape at all: its per-iteration Ray fan-out
 materializes every iteration's coordinates on the driver
@@ -24,6 +24,7 @@ import json
 import os
 import resource
 import sys
+import tempfile
 import time
 
 
@@ -66,17 +67,18 @@ def main(argv=None):
         os.environ["MSM_WE_TPU_PROFILE_CLUSTERING"] = "1"
     if args.block_cache_mb is not None:
         os.environ["MSM_WE_TPU_BLOCK_CACHE_MB"] = str(args.block_cache_mb)
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-
     import numpy as np
 
     from msm_we_tpu.binning import RectilinearBinMapper
     from msm_we_tpu.data import generate_west_h5
     from msm_we_tpu.model import modelWE
+    from msm_we_tpu.utils import enable_compilation_cache
 
+    enable_compilation_cache()
     n_total = args.segments_per_iter * args.iterations
-    path = (
-        f"/tmp/msm_we_tpu_stress_{args.iterations}x{args.segments_per_iter}.h5"
+    path = os.path.join(
+        tempfile.gettempdir(),
+        f"msm_we_tpu_stress_{args.iterations}x{args.segments_per_iter}.h5",
     )
     gen_s = None
     if not os.path.exists(path):

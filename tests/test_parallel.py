@@ -247,25 +247,25 @@ def test_sharded_step_packed_matches_dense(problem, model_parallel):
     np.testing.assert_array_equal(fm_packed, fm_dense)
 
 
-def test_device_f64_weight_guard():
-    """The device flux tier must refuse weights outside the f32 exponent
-    range on backends that emulate f64 as double-double f32 (TPU), and
-    accept anything on CPU (native f64)."""
-    from types import SimpleNamespace
-
+def test_device_f64_weight_guard(monkeypatch):
+    """The default f64 device accumulation takes any WE weight; only the
+    opt-in f32 tier refuses weights outside the f32 exponent range."""
     from msm_we_tpu.model import modelWE
 
-    def guard(platform, weights):
-        m = object.__new__(modelWE)
-        dev = SimpleNamespace(platform=platform)
-        m._mesh = SimpleNamespace(devices=SimpleNamespace(flat=[dev]))
+    m = object.__new__(modelWE)
+
+    def guard(weights):
         return modelWE._device_f64_weights_ok(m, np.asarray(weights))
 
     tiny = np.array([1e-250, 0.5])
-    assert guard("cpu", tiny)  # native f64: anything goes
-    assert not guard("tpu", tiny)  # below f32 tiny -> host fallback
-    assert guard("tpu", np.array([1e-30, 0.5]))  # inside f32 range
-    assert guard("tpu", np.array([0.0]))  # all-zero: nothing to flush
+    monkeypatch.delenv("MSM_WE_TPU_DEVICE_FLUX_F32", raising=False)
+    assert guard(tiny)  # native f64: anything goes
+    assert guard(np.array([1e250, 0.5]))
+    monkeypatch.setenv("MSM_WE_TPU_DEVICE_FLUX_F32", "1")
+    assert not guard(tiny)  # below f32 tiny -> host fallback
+    assert not guard(np.array([1e39]))  # above f32 max
+    assert guard(np.array([1e-30, 0.5]))  # inside f32 range
+    assert guard(np.array([0.0]))  # all-zero: nothing to flush
 
 
 @pytest.mark.parametrize("model_parallel", [1, 2])
