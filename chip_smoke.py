@@ -110,8 +110,8 @@ def phase_build(cfg, card):
         n_atoms=cfg["n_atoms"], seed=cfg["seed"],
     )
     log(f"  set-up (seeded dataset generation, host): "
-        f"{time.perf_counter() - t0:.3f} s, {int(dataset.numSegments.sum())} "
-        "segments")
+        f"{time.perf_counter() - t0:.3f} s beside {card}, "
+        f"{int(dataset.numSegments.sum())} segments")
     for label in ("cold", "warm"):
         wall, model = bench.build(dataset, cfg["n_atoms"])
         log(f"  {label} build: {wall:.3f} s end to end on {card}")
@@ -181,9 +181,10 @@ def compare_assignments(label, X, seg_bin, C, center_bin, valid, got):
 
 
 def flux_device_vs_host(model, weight_scale=1.0):
-    """(device flux, host flux) over the build's iteration window, on the
-    same assignments: the device program that scatters the flux also
-    emits the ids the host bincount then uses."""
+    """(device flux, host flux) over the build's iteration window, both
+    through ``get_flux_matrix``, on the same assignments: the device
+    program that scatters the flux also emits the ids the host bincount
+    then uses. Fails unless the weight guard lets the device route run."""
     from msm_we_tpu import fluxmatrix
 
     feats = model._featurize_all()
@@ -191,17 +192,21 @@ def flux_device_vs_host(model, weight_scale=1.0):
     iters = list(range(2, model.maxIter))
     try:
         feats["weights"] = w0 * weight_scale
-        model._device_flux_row_cache = None
-        assert model._device_f64_weights_ok(feats["weights"]), (
-            "device flux route refused these weights"
-        )
+        model._device_flux_row_cache = None  # device_flux_lag0 refills it
         model._parent_idx = None  # the combined flux + ids program
-        fm_dev = fluxmatrix.device_flux_lag0(model, iters)
+        model._force_device_flux = True
+        fluxmatrix.get_flux_matrix(model, 0, iters_to_use=iters)
+        assert model._device_flux_row_cache is not None, (
+            "the device flux route did not run for these weights"
+        )
+        fm_dev = model.fluxMatrixRaw * len(iters)
+        model._force_device_flux = False
         model._flux_prefer_host = True
         fluxmatrix.get_flux_matrix(model, 0, iters_to_use=iters)
         fm_host = model.fluxMatrixRaw * len(iters)
     finally:
         feats["weights"] = w0
+        model._force_device_flux = False
         model._flux_prefer_host = False
         model._device_flux_row_cache = None
     return fm_dev, fm_host
@@ -215,7 +220,7 @@ def _check_flux(label, fm_dev, fm_host):
           f"<= {FLUX_F64_RTOL}", err <= FLUX_F64_RTOL)
 
 
-def phase_reference(model, dataset, cfg):
+def phase_reference(model, dataset, cfg, card):
     """Layered comparison of the warm build with plain references."""
     import jax
     import jax.numpy as jnp
@@ -274,7 +279,7 @@ def phase_reference(model, dataset, cfg):
         wall, cpu_model = bench.build(dataset, cfg["n_atoms"],
                                       device_pipeline=False)
     rel = abs(cpu_model.JtargetSS - j_host) / j_host
-    log(f"  b.4 CPU reference build: {wall:.3f} s, JtargetSS "
+    log(f"  b.4 CPU reference build (host CPU beside {card}): {wall:.3f} s, JtargetSS "
         f"{cpu_model.JtargetSS!r} vs GPU {j_host!r}, relative difference "
         f"{rel!r} (reported, not gated)")
 
@@ -283,8 +288,8 @@ def phase_reference(model, dataset, cfg):
 def phase_deep_split(model, scale=1e-250):
     log(f"[c] deep-split weights: WE weights x {scale:g}, device f64 flux")
     w = model._featurize_all()["weights"] * scale
-    log(f"  smallest nonzero weight {float(w[w > 0].min())!r}; device route "
-        f"taken: {model._device_f64_weights_ok(w)}")
+    log(f"  smallest nonzero weight {float(w[w > 0].min())!r}; the weight "
+        f"guard sends it to the device: {model._device_f64_weights_ok(w)}")
     fm_dev, fm_host = flux_device_vs_host(model, weight_scale=scale)
     _check_flux("c flux (device f64 scatter vs host f64 bincount)",
                 fm_dev, fm_host)
@@ -329,7 +334,7 @@ def phase_hot_step(p, card, n_trials=20):
     args = tuple(jax.device_put(a) for a in args)
     t0 = time.perf_counter()
     compiled = step.lower(*args).compile()
-    log(f"  compile: {time.perf_counter() - t0:.3f} s")
+    log(f"  compile: {time.perf_counter() - t0:.3f} s for {card}")
     log(f"  memory_analysis: {compiled.memory_analysis()}")
     t_min, t_med, (fm, pss, flux, residual) = bench.time_step(
         compiled, args, n_trials=n_trials
@@ -500,7 +505,7 @@ def main(argv=None):
         ident = dict(ident, count=4)
     else:
         model, dataset = phase_build(BUILD, card)
-        phase_reference(model, dataset, BUILD)
+        phase_reference(model, dataset, BUILD, card)
         phase_deep_split(model)
         del model, dataset
         phase_hot_step(bench.make_problem(**HOT_STEP), card)

@@ -44,7 +44,7 @@ def test_phase_build_reports_stages(capsys):
 
 def test_phase_reference_layers(built, capsys):
     model, dataset = built
-    chip_smoke.phase_reference(model, dataset, TINY)
+    chip_smoke.phase_reference(model, dataset, TINY, "cpu")
     out = capsys.readouterr().out
     for tag in ("b.1", "b.2", "b.3", "b.4"):
         assert tag in out
@@ -55,7 +55,7 @@ def test_phase_deep_split(built, capsys):
     model, _dataset = built
     chip_smoke.phase_deep_split(model)
     out = capsys.readouterr().out
-    assert "device route taken: True" in out and "FAIL" not in out
+    assert "sends it to the device: True" in out and "FAIL" not in out
 
 
 def test_phase_hot_step(capsys):

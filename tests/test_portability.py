@@ -111,6 +111,12 @@ def test_f32_tier_guard_sends_tiny_weights_to_host(monkeypatch, caplog,
     finally:
         pkg_log.removeHandler(caplog.handler)
     assert "MSM_WE_TPU_DEVICE_FLUX_F32" in caplog.text
+    # The flux comparison notices when the guard keeps the device route off
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+
+    with pytest.raises(AssertionError, match="did not run"):
+        chip_smoke.flux_device_vs_host(model, weight_scale=1e-250)
 
 
 def test_runs_without_optional_packages():
