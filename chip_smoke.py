@@ -12,15 +12,16 @@ its comparison, the tolerance and the matmul precision, and any failure
 exits non-zero):
 
 a. **Build** -- ``build_analyze_model(device_pipeline=True)`` on a seeded
-   synthetic WE dataset at NTL9 width (101 iterations x 1,000 segments,
-   300 atoms = 900 raw dims, PCA, 12 WE bins x 25 clusters), cold then
-   warm, then once more under the profiler to show which stages ran
-   device programs.
-b. **Layered reference** -- the GPU's stratified assignment against a numpy
-   f64 argmin on the model's own features and centers; the device f64 flux
-   scatter against the host f64 bincount on the same assignments; the
-   device steady state against the host f64 tail on the same flux matrix;
-   and the whole build on the CPU (reported, not gated).
+   synthetic WE dataset at NTL9 width (``bench.BUILD``: 101 iterations x
+   1,000 segments, 300 atoms = 900 raw dims, PCA to 30 components, 12 WE
+   bins x 25 clusters), cold then warm, then once more under the profiler
+   to show which stages ran device programs: the PCA moments, the PCA
+   transform and the clustering must.
+b. **Layered reference** -- the parent and child ids the build stored
+   against a numpy f64 argmin on the model's own features and centers; the
+   device f64 flux scatter against the host f64 bincount on the same
+   assignments; the device steady state against the host f64 tail on the
+   same flux matrix; and the whole build on the CPU (reported, not gated).
 c. **Deep-split weights** -- the device f64 flux with WE weights scaled to
    ~1e-250 against the host bincount.
 d. **Hot step** -- the fused transform -> assign -> flux -> steady-state
@@ -34,6 +35,7 @@ The last line of standard output is one JSON object,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import argparse
+import copy
 import glob
 import json
 import os
@@ -46,21 +48,24 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
-# The NTL9-width build (reference tests/fixtures/hamsms.py:63-72: 100
-# iterations, 25 clusters per WE bin, ~300 atoms)
-BUILD = dict(n_iterations=101, n_segments=1000, n_atoms=300, seed=17)
 # The fused hot step (bench.make_problem defaults)
 HOT_STEP = dict(n_segments=102_400, n_raw_features=900, n_components=30,
                 n_bins=10, k_per_bin=25)
 FPT_STATES = 1000
 
-# Tolerances, each with its reason
+# Tolerances, each with its reason. The f32 engines' limits sit 10-100
+# times above what they read on an H100 at Precision.HIGHEST (in the
+# comments), and at least 10 times below what rounding the same matrix to
+# TF32's 10-bit mantissa does to the host f64 answer (each phase prints
+# and gates that), so a reduced-precision (TF32, Precision.DEFAULT)
+# engine fails them.
 ASSIGN_GAP_REL = 1e-5  # f32 score rounding: |x|^2 + |c|^2 times ~100 eps32
 FLUX_F64_RTOL = 1e-12  # f64 scatter order (GPU atomics) vs bincount
 FLUX_F32_RTOL = 1e-5  # the hot step scatters its f32 weights in f32
-SS_P_ATOL = 1e-5  # f32 matrix powering vs host f64 eigenvector, on pSS
-SS_J_RTOL = 1e-3  # ... and on the target flux it implies
-FPT_RTOL = 1e-3  # f32 F-matrix recursion vs f64, relative to the peak
+SS_P_ATOL = 1e-6  # f32 powering vs host f64 on pSS: read 1.8e-8; TF32 2.8e-4
+SS_J_RTOL = 1e-5  # ... on the target flux: read 1.1e-7; TF32 2.1e-3
+FPT_RTOL = 1e-5  # F-matrix recursion vs f64 / peak: read 7.5e-7; TF32 1.8e-4
+VPOW_RTOL = 5e-4  # vector powers to T^12345 / max: read 5.2e-5; TF32 4.8e-3
 MESH_J_RTOL = 1e-6  # 4-GPU vs 1-GPU build: cross-shard argmin combine
 
 
@@ -87,6 +92,14 @@ def peak_bytes_in_use():
     return stats.get("peak_bytes_in_use", "not available")
 
 
+def tf32(a):
+    """``a`` rounded to nearest at TF32's 10-bit mantissa (as an f32 GEMM
+    at Precision.DEFAULT reads its inputs on the card), back in f64."""
+    bits = np.asarray(a, np.float32).view(np.uint32)
+    bits = (bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)
+    return bits.view(np.float32).astype(np.float64)
+
+
 def _stage_table(model):
     return ", ".join(f"{n} {s:.3f}" for n, s, _ in model.stage_timings.stages)
 
@@ -97,31 +110,28 @@ def phase_build(cfg, card):
     import jax
 
     import bench
-    from msm_we_tpu.ops.pca import _DEVICE_TRANSFORM_MIN_FLOPS
     from msm_we_tpu.tracing import device_activity_by_stage
 
     log("[a] build: build_analyze_model(device_pipeline=True), "
         f"{cfg['n_iterations']} iterations x {cfg['n_segments']} segments, "
-        f"{cfg['n_atoms']} atoms, PCA, 12 WE bins x 25 clusters; "
-        "assignment GEMMs at Precision.HIGHEST")
+        f"{cfg['n_atoms']} atoms, PCA to {cfg['n_components']} components, "
+        "12 WE bins x 25 clusters; transform and assignment GEMMs at "
+        "Precision.HIGHEST")
     t0 = time.perf_counter()
-    dataset = bench.synthetic_dataset(
-        n_iterations=cfg["n_iterations"], n_segments=cfg["n_segments"],
-        n_atoms=cfg["n_atoms"], seed=cfg["seed"],
-    )
+    dataset = bench.synthetic_dataset(cfg)
     log(f"  set-up (seeded dataset generation, host): "
         f"{time.perf_counter() - t0:.3f} s beside {card}, "
         f"{int(dataset.numSegments.sum())} segments")
     for label in ("cold", "warm"):
-        wall, model = bench.build(dataset, cfg["n_atoms"])
+        wall, model = bench.build(dataset, cfg)
         log(f"  {label} build: {wall:.3f} s end to end on {card}")
         log(f"    stages (s): {_stage_table(model)}")
     log(f"  peak_bytes_in_use: {peak_bytes_in_use()}")
-    n_raw = 3 * cfg["n_atoms"]
+    n_states = 25 * model._bin_mapper.nbins + 2
     log(f"  JtargetSS={model.JtargetSS!r}, pSS: {len(model.pSS)} states, "
         f"sum={float(np.sum(model.pSS))!r}, cleaned states "
-        f"{model.n_clusters + 2} -> {model.fluxMatrix.shape[0]}, "
-        f"PCA {n_raw} -> {model.ndim} components")
+        f"{n_states} -> {model.fluxMatrix.shape[0]}, "
+        f"PCA {3 * cfg['n_atoms']} -> {model.ndim} components")
     check("JtargetSS finite and positive", model.JtargetSS, "> 0",
           np.isfinite(model.JtargetSS) and model.JtargetSS > 0)
     check("pSS sums to 1", float(np.sum(model.pSS)), "atol 1e-9",
@@ -129,7 +139,7 @@ def phase_build(cfg, card):
 
     with tempfile.TemporaryDirectory() as trace_dir:
         with jax.profiler.trace(trace_dir):
-            bench.build(dataset, cfg["n_atoms"])
+            bench.build(dataset, cfg)
         paths = glob.glob(os.path.join(trace_dir, "**", "*.xplane.pb"),
                           recursive=True)
         activity = device_activity_by_stage(paths[0])
@@ -139,12 +149,11 @@ def phase_build(cfg, card):
         shown = ", ".join(mods[:4]) + (f", +{len(mods) - 4}" if len(mods) > 4 else "")
         log(f"    {name}: {act['n_ops']} device ops, busy "
             f"{act['busy_s']:.4f} s [{shown}]")
-    transform_flops = 2.0 * model.FEATURE_CHUNK * n_raw * model.ndim
-    route = ("device" if transform_flops >= _DEVICE_TRANSFORM_MIN_FLOPS
-             else "host numpy")
-    log(f"  PCA transform route: {route} (2 x {model.FEATURE_CHUNK} rows x "
-        f"{n_raw} x {model.ndim} = {transform_flops:.3g} FLOP per chunk vs "
-        f"_DEVICE_TRANSFORM_MIN_FLOPS {_DEVICE_TRANSFORM_MIN_FLOPS:.3g})")
+    # PCAModel.transform's device branch is the module jit__project
+    transform_stages = [name for name, act in activity.items()
+                        if "jit__project" in act["modules"]]
+    check("PCA transform (jit__project) ran on the device in stages",
+          transform_stages, "non-empty", bool(transform_stages))
     for stage in ("Dimensionality reduction", "Clustering"):
         n_ops = activity.get(stage, {}).get("n_ops", 0)
         check(f"{stage} ran device programs", n_ops, "> 0", n_ops > 0)
@@ -220,13 +229,42 @@ def _check_flux(label, fm_dev, fm_host):
           f"<= {FLUX_F64_RTOL}", err <= FLUX_F64_RTOL)
 
 
+def compare_stored_ids(model):
+    """b.1: the parent and child ids the build stored (its dtrajs) against
+    a numpy f64 argmin over the same features and the cleaned bank, and
+    the basis/target rows against their override ids (target wins)."""
+    model._ensure_discretized()
+    strat = model._strat
+    feats = model._featurize_all()
+    C, cb, valid = strat.compact_bank()
+    masks = model._pc_masks()
+    raw_p, raw_c = model._raw_we_bins()
+    for side, X, raw, stored in (
+        ("parent", feats["parent"], raw_p, model._parent_idx),
+        ("child", feats["child"], raw_c, model._child_idx),
+    ):
+        is_b, is_t = masks[f"basis_{side[0]}"], masks[f"target_{side[0]}"]
+        over = is_b | is_t
+        want = np.where(is_t, strat.target_cluster_index,
+                        strat.basis_cluster_index)
+        wrong = int((stored[over] != want[over]).sum())
+        check(f"b.1 {side} basis/target rows carry their override ids",
+              f"{wrong} of {int(over.sum())} wrong", "0 wrong", wrong == 0)
+        free = ~over
+        compare_assignments(
+            f"b.1 {side} ids stored by the build (GPU f32 HIGHEST vs "
+            "numpy f64)",
+            np.asarray(X)[free], strat.we_remap[raw[free]], C, cb, valid,
+            np.asarray(stored)[free],
+        )
+
+
 def phase_reference(model, dataset, cfg, card):
     """Layered comparison of the warm build with plain references."""
     import jax
     import jax.numpy as jnp
 
     import bench
-    from msm_we_tpu.ops.kmeans import masked_assign
     from msm_we_tpu.parallel.sharded import steady_state_from_flux
 
     log("[b] layered reference")
@@ -236,21 +274,8 @@ def phase_reference(model, dataset, cfg, card):
     ind_basis = np.atleast_1d(model.indBasis)
     ind_target = np.atleast_1d(model.indTargets)
 
-    # b.1 stratified assignment at Precision.HIGHEST vs numpy f64
-    strat = model._strat
-    feats = model._featurize_all()
-    C, cb, valid = strat.compact_bank()
-    bins = strat.we_remap[model._raw_we_bins()[1]].astype(np.int32)
-    live = np.isin(bins, cb[valid])
-    X = np.asarray(feats["child"], np.float32)[live]
-    got = np.asarray(masked_assign(
-        jnp.asarray(X), jnp.asarray(bins[live]), jnp.asarray(C),
-        jnp.asarray(cb), jnp.asarray(valid), n_bins=strat.n_bins,
-    ))
-    compare_assignments(
-        "b.1 child assignment (GPU f32 HIGHEST vs numpy f64)",
-        X, bins[live], C, cb, valid, got,
-    )
+    # b.1 the build's stored assignments vs numpy f64
+    compare_stored_ids(model)
 
     # b.2 device f64 flux vs host f64 bincount, same assignments
     fm_dev, fm_host = flux_device_vs_host(model)
@@ -268,16 +293,25 @@ def phase_reference(model, dataset, cfg, card):
     j_err = abs(float(j_dev) - j_host) / j_host
     log(f"  b.3 steady state on {n} states (device f32 HIGHEST powering, "
         f"residual {float(residual)!r}; host f64)")
+    # What TF32 does: the host f64 tail on the same T rounded to TF32
+    lo = copy.copy(model)
+    lo.Tmatrix = tf32(model.Tmatrix)
+    lo.get_steady_state()
+    p_tf32 = float(np.abs(np.asarray(lo.pSS, np.float64) - p_host).max())
+    j_tf32 = abs(lo.get_steady_state_target_flux(_set=False) - j_host) / j_host
+    log(f"  b.3 host f64 tail with T rounded to TF32: max |pSS - host| "
+        f"{p_tf32!r}, |J - host| / J host {j_tf32!r}")
     check("b.3 max |pSS device - host|", p_err, f"<= {SS_P_ATOL}",
           p_err <= SS_P_ATOL)
     check("b.3 |J device - host| / J host", j_err, f"<= {SS_J_RTOL}",
           j_err <= SS_J_RTOL)
+    check("b.3 the J limit rejects TF32 rounding of T", j_tf32,
+          f"> {SS_J_RTOL}", j_tf32 > SS_J_RTOL)
 
     # b.4 the whole build on the CPU, reported only: mini-batch k-means
     # can settle on other centers from last-bit GEMM differences
     with jax.default_device(jax.devices("cpu")[0]):
-        wall, cpu_model = bench.build(dataset, cfg["n_atoms"],
-                                      device_pipeline=False)
+        wall, cpu_model = bench.build(dataset, cfg, device_pipeline=False)
     rel = abs(cpu_model.JtargetSS - j_host) / j_host
     log(f"  b.4 CPU reference build (host CPU beside {card}): {wall:.3f} s, JtargetSS "
         f"{cpu_model.JtargetSS!r} vs GPU {j_host!r}, relative difference "
@@ -398,13 +432,23 @@ def phase_fpt(n_states=FPT_STATES, max_n_lags=50):
         "Precision.HIGHEST vs host f64")
     T = _random_metastable(n_states)
     ini, fin, w = [0, 1, 2], [n_states - 2, n_states - 1], [0.5, 0.3, 0.2]
-    host = MatrixFPT.fpt_distribution(T, ini, fin, w, max_n_lags=max_n_lags)
+
+    def host_pdf(T):
+        return MatrixFPT.fpt_distribution(T, ini, fin, w, max_n_lags=max_n_lags)
+
+    host = host_pdf(T)
     dev = MatrixFPT.fpt_distribution(
         T, ini, fin, w, max_n_lags=max_n_lags, engine="device"
     )
-    err = float(np.abs(dev[:, 1] - host[:, 1]).max() / np.abs(host[:, 1]).max())
+    peak = np.abs(host[:, 1]).max()
+    err = float(np.abs(dev[:, 1] - host[:, 1]).max() / peak)
+    err_tf32 = float(np.abs(host_pdf(tf32(T))[:, 1] - host[:, 1]).max() / peak)
+    log(f"  host f64 fpt_distribution with T rounded to TF32: {err_tf32!r} "
+        "of the peak")
     check(f"fpt_distribution ({max_n_lags} lags) max |device - host| / peak",
           err, f"<= {FPT_RTOL}", err <= FPT_RTOL)
+    check("the FPT limit rejects TF32 rounding of T", err_tf32,
+          f"> {FPT_RTOL}", err_tf32 > FPT_RTOL)
 
     A = T.copy()
     A[fin, :] = 0.0
@@ -412,13 +456,22 @@ def phase_fpt(n_states=FPT_STATES, max_n_lags=50):
     v0 = np.zeros(n_states)
     v0[ini] = w
     powers = _DeviceVectorPowers(A, v0)
-    worst = 0.0
+    A_tf32 = tf32(A)
+    worst = worst_tf32 = 0.0
     for step in (1, 7, 64, 1000, 12345):
         want = v0 @ np.linalg.matrix_power(A, step)
+        scale = np.abs(want).max()
         got = np.asarray(powers(step), np.float64)
-        worst = max(worst, float(np.abs(got - want).max() / np.abs(want).max()))
+        worst = max(worst, float(np.abs(got - want).max() / scale))
+        got_tf32 = v0 @ np.linalg.matrix_power(A_tf32, step)
+        worst_tf32 = max(worst_tf32,
+                         float(np.abs(got_tf32 - want).max() / scale))
+    log(f"  host f64 vector powers with T rounded to TF32: {worst_tf32!r} "
+        "of the max")
     check("vector powers v0 T^s, s up to 12345: max |device - host| / max",
-          worst, f"<= {FPT_RTOL}", worst <= FPT_RTOL)
+          worst, f"<= {VPOW_RTOL}", worst <= VPOW_RTOL)
+    check("the vector-power limit rejects TF32 rounding of T", worst_tf32,
+          f"> {VPOW_RTOL}", worst_tf32 > VPOW_RTOL)
 
 
 # --------------------------------------------------------------- 4 GPUs
@@ -446,14 +499,11 @@ def phase_four_gpus(devices, cfg, n_rows=102_400, card="not available"):
     log(f"[4] build over the {dict(mesh4.shape)} mesh vs one device, "
         f"{cfg['n_iterations']} iterations x {cfg['n_segments']} segments, "
         f"{cfg['n_atoms']} atoms")
-    dataset = bench.synthetic_dataset(
-        n_iterations=cfg["n_iterations"], n_segments=cfg["n_segments"],
-        n_atoms=cfg["n_atoms"], seed=cfg["seed"],
-    )
+    dataset = bench.synthetic_dataset(cfg)
     results = {}
     for label, mesh in (("4 devices", mesh4), ("1 device", mesh1)):
         for run in ("cold", "warm"):
-            wall, model = bench.build(dataset, cfg["n_atoms"], mesh=mesh)
+            wall, model = bench.build(dataset, cfg, mesh=mesh)
             log(f"  {label}, {run}: {wall:.3f} s on {card}, JtargetSS "
                 f"{model.JtargetSS!r}")
         results[label] = model.JtargetSS
@@ -487,7 +537,7 @@ def main(argv=None):
     card = bench.card_name_and_power_limit()
     log(f"device: platform={ident['platform']} kind={ident['kind']} "
         f"count={ident['count']} jax={jax.__version__}")
-    log(f"compilation cache: {cache}")
+    log(f"compilation cache: {cache or 'JAX default'}")
     optional = []
     for name in ("h5py", "networkx", "rich", "sklearn", "matplotlib"):
         try:
@@ -501,11 +551,11 @@ def main(argv=None):
     if args.four_gpus:
         if ident["count"] < 4:
             raise SystemExit(f"--four-gpus needs 4 GPUs, found {ident['count']}")
-        phase_four_gpus(jax.devices()[:4], BUILD, card=card)
+        phase_four_gpus(jax.devices()[:4], bench.BUILD, card=card)
         ident = dict(ident, count=4)
     else:
-        model, dataset = phase_build(BUILD, card)
-        phase_reference(model, dataset, BUILD, card)
+        model, dataset = phase_build(bench.BUILD, card)
+        phase_reference(model, dataset, bench.BUILD, card)
         phase_deep_split(model)
         del model, dataset
         phase_hot_step(bench.make_problem(**HOT_STEP), card)

@@ -196,9 +196,18 @@ class MomentAccumulator:
 # Below this many FLOPs a projection runs in host numpy: a device round
 # trip (transfer + dispatch + readback) dwarfs the matmul for small chunks.
 # The value is still to be measured on the GPU (ROADMAP): at 900 raw dims a
-# 2-component projection of an 8,192-row chunk (2.9e7 FLOP) stays on the
-# host.
+# 30-component projection of an 8,192-row chunk (4.4e8 FLOP) runs on the
+# device, a 2-component one (2.9e7 FLOP) on the host.
 _DEVICE_TRANSFORM_MIN_FLOPS = 5e7
+
+
+@jax.jit
+def _project(flat, comp, offset=None):
+    """The device projection ``flat @ comp - offset`` in f32 at
+    ``Precision.HIGHEST``: one XLA module (``jit__project``) per chunk
+    shape, which a profiler trace of a build names."""
+    out = jnp.matmul(flat, comp, precision=_HI)
+    return out if offset is None else out - offset
 
 
 class PCAModel:
@@ -236,18 +245,11 @@ class PCAModel:
             flat = self._centered_f32(coords)
             if 2.0 * flat.size * self.n_components < _DEVICE_TRANSFORM_MIN_FLOPS:
                 return flat @ self._f32comp
-            return np.asarray(
-                jnp.matmul(
-                    jnp.asarray(flat), jnp.asarray(self._f32comp), precision=_HI
-                )
-            )
+            return np.asarray(_project(flat, self._f32comp))
         flat = np.asarray(coords, np.float32).reshape(len(coords), -1)
         if 2.0 * flat.size * self.n_components < _DEVICE_TRANSFORM_MIN_FLOPS:
             return flat @ self._f32comp - self._offset
-        out = jnp.matmul(
-            jnp.asarray(flat), jnp.asarray(self._f32comp), precision=_HI
-        ) - jnp.asarray(self._offset)
-        return np.asarray(out)
+        return np.asarray(_project(flat, self._f32comp, self._offset))
 
 
 class PairMomentAccumulator:
@@ -410,7 +412,4 @@ class TICAModel:
         flat = (flat - self.mean_).astype(np.float32)
         if 2.0 * flat.size * self.output_dimension < _DEVICE_TRANSFORM_MIN_FLOPS:
             return flat @ self._f32comp
-        out = jnp.matmul(
-            jnp.asarray(flat), jnp.asarray(self._f32comp), precision=_HI
-        )
-        return np.asarray(out)
+        return np.asarray(_project(flat, self._f32comp))

@@ -42,22 +42,35 @@ __all__ = [
 ]
 
 
+def _checkout_root():
+    """The source checkout holding this package (the directory with its
+    ``pyproject.toml``), or None for an installed copy."""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return root if os.path.isfile(os.path.join(root, "pyproject.toml")) else None
+
+
 def enable_compilation_cache():
     """Turn on JAX's persistent compilation cache; return its directory.
 
     When ``JAX_COMPILATION_CACHE_DIR`` is set, JAX uses it and no other
-    directory is set here. Otherwise the cache lives at the fixed path
-    ``<checkout>/.jax_cache`` (git-ignored), so repeated runs from one
-    checkout find their compiled programs again.
+    directory is set here. Otherwise, when the package runs from a source
+    checkout, the cache lives at the fixed path ``<checkout>/.jax_cache``
+    (git-ignored), so repeated runs from one checkout find their compiled
+    programs again. An installed package (no checkout around it) leaves
+    JAX's default alone and returns None.
     """
     import os
 
     path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
     if path:
         return path
+    root = _checkout_root()
+    if root is None:
+        return None
     import jax
 
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     path = os.path.join(root, ".jax_cache")
     os.makedirs(path, exist_ok=True)
     jax.config.update("jax_compilation_cache_dir", path)

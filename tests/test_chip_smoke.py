@@ -17,8 +17,11 @@ import bench  # noqa: E402
 import chip_smoke  # noqa: E402
 
 # 90 atoms = 270 raw dims: above DEVICE_MOMENTS_MIN_DIM, so the PCA moments
-# run as device programs, as they do at 900 dims on the GPU
-TINY = dict(n_iterations=12, n_segments=200, n_atoms=90, seed=17)
+# run as device programs, as they do at 900 dims on the GPU; and 3,600 rows
+# x 270 x 30 components is above _DEVICE_TRANSFORM_MIN_FLOPS, so the PCA
+# transform does too
+TINY = dict(n_iterations=12, n_segments=300, n_atoms=90, n_components=30,
+            seed=17)
 
 
 @pytest.fixture(scope="module")
@@ -38,7 +41,7 @@ def test_phase_build_reports_stages(capsys):
     out = capsys.readouterr().out
     assert "Dimensionality reduction ran device programs" in out
     assert "Clustering ran device programs" in out
-    assert "PCA transform route:" in out
+    assert "PCA transform (jit__project) ran on the device" in out
     assert "FAIL" not in out
 
 
@@ -110,3 +113,32 @@ def test_result_line_format():
         '"kind": "NVIDIA H100 80GB HBM3", "count": 1}}'
     )
     assert json.loads(line) == {"ok": True, "device": ident}
+
+
+def test_tf32_rounds_to_a_10_bit_mantissa():
+    one = 1.0
+    assert chip_smoke.tf32(one + 2.0**-12) == one  # below half an ulp
+    assert chip_smoke.tf32(one + 2.0**-10) == one + 2.0**-10  # representable
+    assert chip_smoke.tf32(one + 3 * 2.0**-12) == one + 2.0**-10  # rounds up
+    assert chip_smoke.tf32(np.float64(0.1)).dtype == np.float64
+
+
+def test_compare_stored_ids_rejects_a_corrupted_id(built, capsys):
+    model, _dataset = built
+    chip_smoke.compare_stored_ids(model)
+    assert "FAIL" not in capsys.readouterr().out
+    strat = model._strat
+    _C, cb, valid = strat.compact_bank()
+    masks = model._pc_masks()
+    free = ~(masks["basis_c"] | masks["target_c"])
+    stored = model._child_idx
+    row = int(np.flatnonzero(free)[0])
+    same_bin = np.flatnonzero(valid & (cb == cb[stored[row]]))
+    other = int(same_bin[same_bin != stored[row]][0])
+    was = int(stored[row])
+    try:
+        stored[row] = other
+        with pytest.raises(AssertionError, match="b.1 child"):
+            chip_smoke.compare_stored_ids(model)
+    finally:
+        stored[row] = was

@@ -274,3 +274,49 @@ def test_device_moments_pca_matches_host(two_files):
         assert np.allclose(a[:, j], b[:, j], atol=1e-3) or np.allclose(
             a[:, j], -b[:, j], atol=1e-3
         )
+
+
+def test_dimreduce_n_components_keeps_that_many(two_files):
+    """dimReduce(n_components=k) keeps exactly the k leading components of
+    the same PCA fit the variance cutoff draws from."""
+    cut = _build(two_files[:1], "pca")
+    fixed = _build(two_files[:1], "pca")
+    fixed.dimReduce(n_components=5)
+    assert fixed.ndim == 5
+    k = min(cut.ndim, 5)
+    np.testing.assert_array_equal(
+        fixed.coordinates.components_[:k], cut.coordinates.components_[:k]
+    )
+    coords = fixed._dataset.iter_child_coords(2)
+    assert fixed.reduceCoordinates(coords).shape == (len(coords), 5)
+
+
+@pytest.mark.parametrize("method", ["tica", "batch-pca", "none"])
+def test_dimreduce_n_components_is_pca_only(two_files, method):
+    model = _build(two_files[:1], method)
+    with pytest.raises(ValueError, match="n_components"):
+        model.dimReduce(n_components=3)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e7])
+def test_pca_device_projection_matches_f64(offset):
+    """PCAModel.transform above _DEVICE_TRANSFORM_MIN_FLOPS (the jitted
+    ``_project``) agrees with the host route and with numpy f64, for
+    centred data and for far-from-origin data (no folded offset)."""
+    from msm_we_tpu.ops.pca import _DEVICE_TRANSFORM_MIN_FLOPS, PCAModel
+
+    rng = np.random.default_rng(5)
+    d, k = 300, 30
+    comps = np.linalg.qr(rng.normal(size=(d, k)))[0].T
+    mean = rng.normal(size=d) + offset
+    pca = PCAModel(mean, comps, np.linspace(2.0, 1.0, k))
+    X = mean + rng.normal(size=(4096, d))
+    assert 2.0 * X.size * k >= _DEVICE_TRANSFORM_MIN_FLOPS
+    want = (X - mean) @ comps.T
+    big = pca.transform(X)
+    small = np.concatenate([pca.transform(X[i : i + 64]) for i in range(0, 256, 64)])
+    assert 2.0 * 64 * d * k < _DEVICE_TRANSFORM_MIN_FLOPS
+    scale = np.abs(want).max()
+    assert pca._fold_ok == (offset == 0.0)
+    assert np.abs(big - want).max() / scale < 1e-5
+    np.testing.assert_allclose(big[:256], small, rtol=0, atol=1e-5 * scale)

@@ -178,6 +178,16 @@ def test_compilation_cache_defaults_into_the_checkout(monkeypatch):
         jax.config.update("jax_compilation_cache_dir", before)
 
 
+def test_compilation_cache_leaves_an_installed_package_alone(monkeypatch):
+    from msm_we_tpu import utils
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    monkeypatch.setattr(utils, "_checkout_root", lambda: None)
+    before = jax.config.jax_compilation_cache_dir
+    assert utils.enable_compilation_cache() is None
+    assert jax.config.jax_compilation_cache_dir == before
+
+
 def test_select_devices_never_substitutes(monkeypatch):
     sys.path.insert(0, ROOT)
     import __graft_entry__ as graft
